@@ -24,7 +24,7 @@ from minicom_tpu.config import CompressorConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="minicom_tpu",
-        description="TPU-native lossless short-read (FASTQ) compressor")
+        description="lossless short-read (FASTQ) compressor")
     p.add_argument("-r", metavar="FASTQ", help="compress a single-end FASTQ")
     p.add_argument("-1", dest="pe1", metavar="FASTQ", help="paired-end mate 1")
     p.add_argument("-2", dest="pe2", metavar="FASTQ", help="paired-end mate 2")

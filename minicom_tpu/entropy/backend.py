@@ -16,8 +16,8 @@ through a named backend:
             speed) so the literal entropy stage parallelizes — the decode-
             side answer to dnarc's serial one-big-model pass (r05),
 * "trans" — ON-CHIP interleaved rANS (entropy/device_rans.py): order-0
-            static-table coder as a 128-lane lax.scan program; the device
-            path for local-TPU deployments (SURVEY §7 step 8),
+            static-table coder as a 128-lane lax.scan program; the
+            device entropy path (SURVEY §7 step 8),
 * "trans1"/"trans2" — ON-CHIP context-modeled rANS (device_ctx_rans.py):
             static per-block tables over the used-byte alphabet conditioned
             on the previous 1/2 symbols, chunked lanes so contexts are true

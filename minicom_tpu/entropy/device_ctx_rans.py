@@ -323,7 +323,7 @@ def decompress(blob: bytes) -> bytes:
 # The dz matcher (native/dnalz.cpp) strips the long fwd/rc repeats; BOTH
 # residual streams then go through the device rANS — token byte planes with
 # order-1 contexts, literal BASES with order-4 contexts. This is the archive
-# configuration where the entropy stage runs on the TPU (BASELINE north
+# configuration where the entropy stage runs on the device (BASELINE north
 # star; the host `dz` codec is the bit-compatible-in-spirit host twin).
 #
 # Layout: u8 'Z' u8 version=1 | u64 raw_len | u32 n_tokens | u64 n_lit_bytes

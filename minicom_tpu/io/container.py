@@ -73,10 +73,9 @@ _AUTO_DEFAULT = ["xz", "o1rc"]
 
 # codec="device": every stream through the ON-CHIP rANS family
 # (device_rans/device_ctx_rans; dzt = dz LZ transform + on-chip residual
-# coding) — the archive configuration for a local-TPU deployment where the
-# entropy stage runs on the chip (BASELINE north star). "store" guards
-# streams the static-table coders lose (measured CODECS_r05.json:
-# device archive = 1.012x the host-auto archive on the 5M bench).
+# coding) — the archive configuration where the entropy stage runs on the
+# device (BASELINE north star). "store" guards streams the static-table
+# coders lose.
 _DEVICE_AUTO: Dict[str, list] = {
     "ref": ["dzt"],
     "single": ["dzt", "trans1"],

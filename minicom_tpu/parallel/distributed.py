@@ -28,7 +28,7 @@ still replicate, and plain files byte-range-shard even that, io/fastq.py):
       member chunks; entropy coding by stream ranges (io/container.py),
 * each exchange is an ordered ragged all-gather (rank-order concatenation
   reproduces the serial scan order exactly).
-Remaining replicated host work (measured in SCALING_r04.json): the cheap
+Remaining replicated host work: the cheap
 orchestration glue — segment detection, matching, CSR bookkeeping — all
 O(N) numpy passes with small constants.
 

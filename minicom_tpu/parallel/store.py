@@ -1,8 +1,8 @@
 """Row-sharded resident read store (VERDICT r04 missing #4).
 
 The r04 pipeline all-gathered the full parsed [N, L] code matrix onto every
-rank, so per-rank RSS was O(dataset) regardless of the process count (the
-2.6x load ratio in SCALING_r04.json). Here each rank keeps ONLY its
+rank, so per-rank RSS was O(dataset) regardless of the process count.
+Here each rank keeps ONLY its
 contiguous row slice; the stages that need remote rows fetch them through
 collective exchanges with bounded transient buffers:
 

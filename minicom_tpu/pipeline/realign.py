@@ -9,7 +9,7 @@ threshold plus an encode-cost check, and claims reads under lock-striped
 trylocks with lazy dictionary deletion — a schedule-dependent, best-effort
 search (kthread_hash_realign.c:375-377,425-433).
 
-Deterministic TPU-native rebuild:
+Deterministic data-parallel rebuild:
 * the MPHF becomes a SORTED-KEY GATHER TABLE per dictionary: keys are the
   2-bit-packed substring windows of all singletons, sorted; lookup is a
   vectorized binary search + CSR slice (SURVEY.md §7 step 7),
@@ -49,7 +49,7 @@ def _pack_key(codes: np.ndarray, start: int, seg_len: int) -> np.ndarray:
 
 
 class SortedKeyDict:
-    """Sorted-key gather table: the TPU-native replacement for BooPHF+CSR
+    """Sorted-key gather table: the data-parallel replacement for BooPHF+CSR
     (bbhashdict.h:21-43). Lookup = binary search into the sorted key array;
     hits slice a CSR range of singleton indices."""
 

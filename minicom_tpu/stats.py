@@ -16,8 +16,8 @@ class StageStats:
     @contextlib.contextmanager
     def stage(self, name: str):
         # per-stage device attribution: wall the host spent blocked on the
-        # chip + bytes across the link during this stage (mesh.py accounting;
-        # the BENCH_DEVICE artifact's per-stage split, VERDICT r04 item 2)
+        # device + bytes across the link during this stage (mesh.py
+        # accounting)
         from minicom_tpu.parallel import mesh
         d0, b0 = mesh.device_seconds(), mesh.device_bytes()
         t0 = time.perf_counter()

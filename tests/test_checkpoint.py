@@ -10,7 +10,7 @@ from minicom_tpu import compressor
 from minicom_tpu.config import CompressorConfig
 from minicom_tpu.stats import StageStats
 
-from conftest import random_reads, write_fastq
+from tests.conftest import random_reads, write_fastq
 
 
 def _genome_reads(rng, n=600, L=100):

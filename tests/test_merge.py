@@ -190,12 +190,13 @@ def test_native_probe_pairs_match_numpy(rng):
                 == stats_nat.get("merge_probe_drops", 0))
 
 
-def test_host_sketch_archive_identical(tmp_path, rng, monkeypatch):
-    """The native host contig sketch (single-chip fast path) and the device
-    sketch path produce byte-identical archives — which path ran is never
-    observable in the output (the consensus.cpp dual-path guarantee, extended
-    to the merge stage)."""
+def test_host_sketch_archive_identical(tmp_path, rng):
+    """The native host path (CPU backend, no mesh) and the device path
+    (forced by a 1-device mesh: read sketch, consensus, contig sketch and
+    merge re-vote all on the device) produce byte-identical archives —
+    which path ran is never observable in the output."""
     from minicom_tpu import compressor, native
+    from minicom_tpu.parallel import mesh
     from tests.conftest import write_fastq
     if not native.has_native():
         import pytest
@@ -204,12 +205,18 @@ def test_host_sketch_archive_identical(tmp_path, rng, monkeypatch):
     fq = str(tmp_path / "in.fastq")
     write_fastq(fq, reads)
     blobs = {}
-    for flag in ("1", "0"):
-        monkeypatch.setenv("MTC_HOST_SKETCH", flag)
-        arc = str(tmp_path / f"s{flag}.mtc")
-        compressor.compress(fq, arc, CompressorConfig())
-        blobs[flag] = open(arc, "rb").read()
-    assert blobs["1"] == blobs["0"]
+    try:
+        for name, m in (("host", None), ("device", mesh.make_mesh(1))):
+            mesh.set_mesh(m)
+            assert mesh.use_device() == (m is not None)
+            mesh.reset_device_seconds()
+            arc = str(tmp_path / f"{name}.mtc")
+            compressor.compress(fq, arc, CompressorConfig())
+            assert (mesh.device_bytes() > 0) == (m is not None)
+            blobs[name] = open(arc, "rb").read()
+    finally:
+        mesh.set_mesh(None)
+    assert blobs["host"] == blobs["device"]
 
 
 def test_revote_roundtrip_and_size(tmp_path, rng):

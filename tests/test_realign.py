@@ -133,23 +133,3 @@ def test_native_probe_matches_numpy(rng):
                        pop[pick].tolist()))
 
     assert winners(nat) == winners(ref)
-
-
-def test_device_verify_matches_native(rng):
-    """The device XOR-popcount verify kernels (ops/pallas_verify.py — XLA and
-    Pallas-interpret) match the numpy/native basediff popcount on packed
-    2-bit words (SURVEY §7 step 7's promised kernel)."""
-    import jax.numpy as jnp
-    from minicom_tpu.ops.pack import pack_2bit_words, popcount_u32
-    from minicom_tpu.ops.pallas_verify import (popcount_verify,
-                                               popcount_verify_pallas)
-    N, L = 512, 100
-    a = rng.integers(0, 4, (N, L)).astype(np.uint8)
-    b = rng.integers(0, 4, (N, L)).astype(np.uint8)
-    aw, bw = pack_2bit_words(a), pack_2bit_words(b)
-    want = popcount_u32(aw ^ bw).sum(axis=1).astype(np.int32)
-    got_xla = np.asarray(popcount_verify(jnp.asarray(aw), jnp.asarray(bw)))
-    np.testing.assert_array_equal(got_xla, want)
-    got_pl = np.asarray(popcount_verify_pallas(
-        jnp.asarray(aw), jnp.asarray(bw), block=256, interpret=True))
-    np.testing.assert_array_equal(got_pl, want)

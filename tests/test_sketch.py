@@ -1,8 +1,8 @@
 """Sketch kernels vs a tiny pure-Python oracle of the canonical spec.
 
 The k-mer/strand/palindrome semantics transcribe sketch.c:238-289; the ranking
-hash is this package's own 32-bit avalanche (ops/sketch.py mix32) since the
-reference's 64-bit hash64 would require emulated u64 arithmetic on TPU.
+hash is this package's own 32-bit avalanche (ops/sketch.py mix32) since device
+code here is 32-bit by convention and the reference's hash64 is 64-bit.
 """
 
 import jax.numpy as jnp
@@ -143,31 +143,6 @@ def test_sketch_reads_dyn_matches_static(rng, k):
         assert np.array_equal(x, y)
 
 
-def test_pallas_windowed_matches_xla(rng):
-    """The Pallas sketch kernel (interpret mode on CPU) emits the same
-    (kmer, position, strand, count) set as the XLA windowed sketch it
-    replaces on TPU (merge.sketch_contigs)."""
-    import jax.numpy as jnp
-    from minicom_tpu.ops.pallas_sketch import sketch_windowed_pallas
-    from minicom_tpu.ops.sketch import sketch_windowed
-
-    for C, Lmax, k, w, m in [(16, 256, 17, 11, 48), (8, 512, 31, 19, 24)]:
-        lengths = rng.integers(k + 1, Lmax + 1, C).astype(np.int32)
-        codes = rng.integers(0, 4, (C, Lmax), dtype=np.uint8)
-        h, hi, lo, pos, strand, valid = (
-            np.asarray(x) for x in sketch_windowed(
-                jnp.asarray(codes), jnp.asarray(lengths), k, w, m))
-        ghi, glo, gmeta, gnv = (np.asarray(x) for x in sketch_windowed_pallas(
-            jnp.asarray(codes), jnp.asarray(lengths), k, w, m,
-            interpret=True))
-        np.testing.assert_array_equal(valid.sum(axis=1), gnv)
-        gv = np.arange(m)[None, :] < gnv[:, None]
-        np.testing.assert_array_equal(hi[valid], ghi[gv])
-        np.testing.assert_array_equal(lo[valid], glo[gv])
-        np.testing.assert_array_equal(
-            (pos[valid] << 1) | strand[valid], gmeta[gv])
-
-
 def test_native_windowed_matches_xla(rng):
     """The native host sketch (sketch.cpp — the single-chip merge fast path)
     emits buffers bit-identical to the XLA windowed sketch: same keys, meta
@@ -223,28 +198,36 @@ def test_native_reads_sketch_matches_device(rng):
         np.testing.assert_array_equal(strand, nz)
 
 
-def test_gather32_pallas_matches_xla(rng):
-    """The 32-bit hashed-key compact kernels (merge's actual entry points,
-    fed by the shared gather) produce identical buffers: Pallas interpret
-    mode vs the XLA path."""
-    import jax.numpy as jnp
-    from minicom_tpu.ops.pallas_sketch import sketch_windowed_pallas_compact32
+def test_merge_rung_2048_matches_native(rng):
+    """At the merge stage's 2048 ladder rung (k=31, w=19, the rung's
+    _batch_m slots), the on-device gather + windowed sketch that
+    merge.sketch_contigs runs emits the same buffers as the native host
+    twin, pad rows included."""
+    from minicom_tpu import native
     from minicom_tpu.ops.sketch import (gather_contig_rows,
                                         sketch_windowed_compact32)
-
-    ref = rng.integers(0, 4, 2048, dtype=np.uint8)
-    starts = np.array([0, 100, 400, 1200, 30, 900, 50, 333], np.int32)
-    lengths = np.array([90, 250, 700, 800, 64, 128, 40, 511], np.int32)
-    k, w, m, Lmax = 17, 11, 48, 1024
-    sl = jnp.asarray(np.stack([starts, lengths]))
-    codes, ln = gather_contig_rows(jnp.asarray(ref), sl, Lmax)
-    a = np.asarray(sketch_windowed_compact32(codes, ln, k, w, m))
-    b = np.asarray(sketch_windowed_pallas_compact32(
-        codes, ln, k, w, m, interpret=True))
-    C = len(starts)
-    cm = C * m
-    nv = a[2 * cm:].view(np.int32)
-    v = (np.arange(m)[None, :] < nv[:, None]).reshape(-1)
-    np.testing.assert_array_equal(a[2 * cm:], b[2 * cm:])      # counts
-    np.testing.assert_array_equal(a[:cm][v], b[:cm][v])        # keys
-    np.testing.assert_array_equal(a[cm:2 * cm][v], b[cm:2 * cm][v])  # meta
+    from minicom_tpu.pipeline.merge import _RANK_CAP, _batch_m
+    if not native.has_native():
+        pytest.skip("native toolchain unavailable")
+    k, w, Lmax, rows, nb = 31, 19, 2048, 96, 80
+    m = _batch_m(Lmax, k, w, _RANK_CAP)
+    ref = rng.integers(0, 4, 1 << 16, dtype=np.uint8)
+    starts = rng.integers(0, len(ref) - Lmax, nb).astype(np.int64)
+    lengths = rng.integers(513, Lmax + 1, nb).astype(np.int32)
+    sl = np.zeros((2, rows), np.int32)
+    sl[0] = len(ref)                      # pad rows gather out of range
+    sl[0, :nb], sl[1, :nb] = starts, lengths
+    codes, ln = gather_contig_rows(jnp.asarray(ref), jnp.asarray(sl), Lmax)
+    buf = np.asarray(sketch_windowed_compact32(codes, ln, k, w, m))
+    cm = rows * m
+    xk = buf[:cm].reshape(rows, m)
+    xm = buf[cm:2 * cm].view(np.int32).reshape(rows, m)
+    xnv = buf[2 * cm:].view(np.int32)
+    assert (xnv[nb:] == 0).all()
+    nk, nm, nnv = native.sketch_windowed_host(
+        ref, starts, lengths, k, np.full(nb, w, np.int32),
+        np.full(nb, m, np.int32), m)
+    np.testing.assert_array_equal(xnv[:nb], nnv)
+    v = np.arange(m)[None, :] < nnv[:, None]
+    np.testing.assert_array_equal(xk[:nb][v], nk[v])
+    np.testing.assert_array_equal(xm[:nb][v], nm[v])

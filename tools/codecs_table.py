@@ -9,8 +9,8 @@ For every stream in the archive, trial-encodes the HOST family
 trans1/trans2, dzt), records sizes, then totals two archive variants:
 * host_archive_bytes  — the `auto` winners (what the product path ships)
 * device_archive_bytes — the best DEVICE-eligible codec per stream (store/
-  raw fallback where the device family loses to raw), i.e. what a local-TPU
-  deployment pays when the entropy stage runs on-chip.
+  raw fallback where the device family loses to raw), i.e. what a
+  deployment pays when the entropy stage runs on the device.
 
 Sizes are backend-independent (the codecs are deterministic); this runs on
 the CPU backend so the table is cheap to regenerate.
